@@ -31,11 +31,12 @@ def _measure(n_frames: int = 3):
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/solr_jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    from solstice.utils.cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_secs=5)
 
     import bench as bench_mod
-    from solr_tpu.parallel import (
+    from solstice.parallel import (
         initialize_distributed, make_host_chip_mesh, make_mesh, shard_render,
     )
 
@@ -96,9 +97,9 @@ def _cpu_mesh_dryrun():
     import jax.numpy as jnp
     import numpy as np
 
-    import solr_tpu as st
-    from solr_tpu.ops.render import render_sample
-    from solr_tpu.parallel import (
+    import solstice as st
+    from solstice.ops.render import render_sample
+    from solstice.parallel import (
         init_zero_opt_state, make_host_chip_mesh, make_sharded_train_step,
         shard_render,
     )

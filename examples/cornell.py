@@ -1,26 +1,31 @@
-"""End-to-end TPU verification render: Cornell-style box with mirror,
+"""End-to-end verification render: Cornell-style box with mirror,
 glass, checkerboard floor, and a triangle mesh — exercises every pool,
-the block-packet Pallas traversal, Phong+shadows, reflection/refraction,
-and writes a PNG for visual inspection.
+the packet traversal, Phong+shadows, reflection/refraction, and writes
+a PNG for visual inspection.
 
-Run: PYTHONPATH=/root/repo:$PYTHONPATH python examples/cornell.py
+Run from the repository root: python examples/cornell.py [out.png]
 """
 
+import os
 import sys
+import tempfile
 import time
 
-import jax
-import numpy as np
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/solr_jax_cache_tpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
 
-import solr_tpu as st  # noqa: E402
-from solr_tpu.io.image import save_image  # noqa: E402
-from solr_tpu.scenes import make_scene  # noqa: E402
+from solstice.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache(min_compile_secs=5)
+
+import solstice as st  # noqa: E402
+from solstice.io.image import save_image  # noqa: E402
+from solstice.scenes import make_scene  # noqa: E402
 
 
-def main(out="/tmp/cornell_verify.png"):
+def main(out=os.path.join(tempfile.gettempdir(), "cornell_verify.png")):
     demo = make_scene("cornell").initialize()
     scene, camera = demo.scene, demo.camera
     cfg = st.RenderConfig(width=256, height=256, max_bounces=4)

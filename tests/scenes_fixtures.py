@@ -8,8 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
-import solr_tpu as st
-from solr_tpu.types import PlaneAxis, ProceduralKind
+import solstice as st
+from solstice.types import PlaneAxis, ProceduralKind
 
 
 def cornell_box(

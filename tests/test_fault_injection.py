@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import solr_tpu as st
+import solstice as st
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,9 +30,9 @@ class TestResumableRender:
     def test_resume_is_bit_identical(self, tmp_path):
         """Interrupt after 2 of 4 chunks (by simply calling twice with a
         checkpoint dir that has partial state) -> identical image."""
-        from solr_tpu.ops.render import render_sample
-        from solr_tpu.utils.checkpoint import CheckpointManager, latest_step
-        from solr_tpu.utils.resumable import resumable_render
+        from solstice.ops.render import render_sample
+        from solstice.utils.checkpoint import CheckpointManager, latest_step
+        from solstice.utils.resumable import resumable_render
 
         scene, cam = _tiny_scene()
         cfg = st.RenderConfig(width=32, height=32, max_bounces=2)
@@ -63,8 +63,8 @@ class TestResumableRender:
         """Chunked rendering must equal the one-shot full-frame path."""
         import tempfile
 
-        from solr_tpu.ops.render import render_sample
-        from solr_tpu.utils.resumable import resumable_render
+        from solstice.ops.render import render_sample
+        from solstice.utils.resumable import resumable_render
 
         scene, cam = _tiny_scene()
         cfg = st.RenderConfig(width=32, height=32, max_bounces=2)

@@ -16,14 +16,14 @@ import os
 import numpy as np
 import pytest
 
-import solr_tpu as st
+import solstice as st
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 CFG = st.RenderConfig(width=96, height=96, max_bounces=3)
 
 
 def _render(name):
-    from solr_tpu.scenes import make_scene
+    from solstice.scenes import make_scene
 
     demo = make_scene(name, seed=0)
     import jax
@@ -42,7 +42,7 @@ def _golden_path(name):
 
 @pytest.mark.parametrize("name", SCENES)
 def test_matches_golden(name):
-    from solr_tpu.io.image import load_image, save_image
+    from solstice.io.image import load_image, save_image
 
     path = _golden_path(name)
     assert os.path.exists(path), (
@@ -61,7 +61,7 @@ if __name__ == "__main__":
     import sys
 
     if "--regen" in sys.argv:
-        from solr_tpu.io.image import save_image
+        from solstice.io.image import save_image
 
         os.makedirs(GOLDEN_DIR, exist_ok=True)
         for name in SCENES:

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import solr_tpu as st
-from solr_tpu.ops.render import render_sample
+import solstice as st
+from solstice.ops.render import render_sample
 
 from scenes_fixtures import cornell_box, cornell_camera
 

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from solr_tpu.constants import T_FAR
-from solr_tpu.ops import intersect as isect
-from solr_tpu.ops import vecmath as vm
+from solstice.constants import T_FAR
+from solstice.ops import intersect as isect
+from solstice.ops import vecmath as vm
 
 EPS = 1e-4
 

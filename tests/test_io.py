@@ -7,8 +7,8 @@ import jax
 import numpy as np
 import pytest
 
-import solr_tpu as st
-from solr_tpu.io import (
+import solstice as st
+from solstice.io import (
     load_image,
     load_obj,
     load_pdb,
@@ -16,8 +16,8 @@ from solr_tpu.io import (
     load_swc,
     save_scene,
 )
-from solr_tpu.io.image import save_image
-from solr_tpu.ops.render import render_sample
+from solstice.io.image import save_image
+from solstice.ops.render import render_sample
 
 from scenes_fixtures import cornell_box, cornell_camera
 
@@ -118,7 +118,7 @@ class TestPDB:
         assert len(b._cylinders) > 0  # CA-C / N-CA bonds within cutoff
 
     def test_backbone(self, tmp_path):
-        from solr_tpu.io.pdb import GeometryMode
+        from solstice.io.pdb import GeometryMode
 
         (tmp_path / "m.pdb").write_text(PDB_TEXT)
         b = st.SceneBuilder()

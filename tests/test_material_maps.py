@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import solr_tpu as st
-from solr_tpu.ops.render import render_sample
-from solr_tpu.ops.textures import material_map_scales
-from solr_tpu.ops.traverse import scene_closest_hit, surface_at
+import solstice as st
+from solstice.ops.render import render_sample
+from solstice.ops.textures import material_map_scales
+from solstice.ops.traverse import scene_closest_hit, surface_at
 
 CFG = st.RenderConfig(width=32, height=32, max_bounces=3)
 CAM = st.Camera.create(position=(0.0, 1.0, -4.0), fov=1.0)
@@ -141,7 +141,7 @@ class TestTransparencyMap:
 
 class TestIrtRoundTrip:
     def test_slots_survive_save_load(self, tmp_path):
-        from solr_tpu.io.irt import load_scene, save_scene
+        from solstice.io.irt import load_scene, save_scene
 
         scene = _scene(BLACK, "texture_reflection", reflection=0.8)
         p = str(tmp_path / "s.irt")

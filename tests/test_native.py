@@ -1,17 +1,17 @@
 """Native C++ LBVH builder vs the NumPy reference builder.
 
-The native path (solr_tpu/native/src/lbvh.cc) is the framework's analog
+The native path (solstice/native/src/lbvh.cc) is the framework's analog
 of the reference's host-side C++ acceleration build
 (solr/engines/GPUKernel.cpp: compactBoxes); it must produce a tree
-identical to the NumPy builder in solr_tpu/ops/bvh.py.
+identical to the NumPy builder in solstice/ops/bvh.py.
 """
 
 import numpy as np
 import numpy.testing as npt
 import pytest
 
-from solr_tpu import native
-from solr_tpu.ops.bvh import build_bvh
+from solstice import native
+from solstice.ops.bvh import build_bvh
 
 pytestmark = pytest.mark.skipif(
     not native.native_available(), reason="no C++ toolchain"
@@ -124,8 +124,8 @@ Kd 0.1 0.1 0.8
     def _load(self, tmp_path, use_native):
         import os
 
-        import solr_tpu as st
-        from solr_tpu.io.obj import load_obj
+        import solstice as st
+        from solstice.io.obj import load_obj
 
         d = tmp_path / ("n" if use_native else "p")
         d.mkdir()
@@ -144,7 +144,7 @@ Kd 0.1 0.1 0.8
         return b
 
     def test_matches_python_parser(self, tmp_path):
-        from solr_tpu.native import native_available
+        from solstice.native import native_available
 
         if not native_available():
             pytest.skip("no native toolchain")
@@ -170,7 +170,7 @@ Kd 0.1 0.1 0.8
     def test_large_mesh_roundtrip(self, tmp_path):
         """Native parse of a generated grid mesh must reproduce the
         vertex positions bit-exactly (strtof path)."""
-        from solr_tpu.native import obj_load, native_available
+        from solstice.native import obj_load, native_available
 
         if not native_available():
             pytest.skip("no native toolchain")

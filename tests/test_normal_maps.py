@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import solr_tpu as st
-from solr_tpu.ops.textures import (
+import solstice as st
+from solstice.ops.textures import (
     BUMP_STRENGTH, apply_normal_maps, tangent_basis,
 )
-from solr_tpu.ops.traverse import scene_closest_hit, surface_at
+from solstice.ops.traverse import scene_closest_hit, surface_at
 
 
 def _floor_scene(**mat_kw):

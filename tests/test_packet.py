@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import solr_tpu as st
-from solr_tpu.oracle.cpu_tracer import oracle_render
-from solr_tpu.ops import packet as pk
-from solr_tpu.ops.render import render_sample
+import solstice as st
+from solstice.oracle.cpu_tracer import oracle_render
+from solstice.ops import packet as pk
+from solstice.ops.render import render_sample
 
 from scenes_fixtures import random_tri_field
 
@@ -122,7 +122,7 @@ class TestPacketMatchesWhile:
 
 class TestStripIntervalSelect:
     def _bundle_setup(self, scene, cam, cfg):
-        from solr_tpu.ops.camera import camera_rays
+        from solstice.ops.camera import camera_rays
 
         o, d = camera_rays(cam, cfg)
         perm, _ = pk.tile_permutation(
@@ -181,7 +181,7 @@ class TestStripIntervalSelect:
             o_t, d_t, live, accel, 256, 64, 1e-4,
         )
         assert (np.asarray(dropped) > 1e29).all()
-        from solr_tpu.ops.traverse import _ray_block_slabs
+        from solstice.ops.traverse import _ray_block_slabs
 
         s, sb, _ = o_t.shape
         g = cand.shape[1]
@@ -254,7 +254,7 @@ class TestStripIntervalSelect:
     def test_parked_rays_cull_to_nothing(self):
         scene = _terrain_scene(40)
         accel = scene.tri_accel
-        from solr_tpu.constants import PARK_DIR, PARK_POS
+        from solstice.constants import PARK_DIR, PARK_POS
 
         o_t = jnp.full((2, 256, 3), PARK_POS, jnp.float32)
         d_t = jnp.full((2, 256, 3), PARK_DIR, jnp.float32)
@@ -301,27 +301,19 @@ class TestStripIntervalSelect:
 
 class TestFullPathInterpret:
     """The COMPLETE packet path (strip-interval sweep + exactness nets)
-    through the real Pallas kernels in interpret mode — CPU coverage of
-    exactly the code path the TPU executes (round-2 lesson:
-    XLA-fallback-only CPU coverage let kernel-path bugs ship).
-    SOLR_PALLAS_INTERPRET routes traverse._use_pallas onto the kernels.
-    """
+    through the real kernels in interpret mode — CPU coverage of the
+    code path the GPU executes (XLA-route-only CPU coverage once let
+    kernel-path bugs ship).  RenderConfig.backend="interpret" routes
+    the strip sweeps onto the kernels."""
 
-    def _render(self, scene, cfg, interpret):
-        import os
+    def _render(self, scene, cfg, backend):
+        import dataclasses
 
-        from solr_tpu.ops.render import render_sample
+        from solstice.ops.render import render_sample
 
-        old = os.environ.pop("SOLR_PALLAS_INTERPRET", None)
-        try:
-            if interpret:
-                os.environ["SOLR_PALLAS_INTERPRET"] = "1"
-            img, t = render_sample(scene, CAM, cfg)
-            return np.asarray(img), np.asarray(t)
-        finally:
-            os.environ.pop("SOLR_PALLAS_INTERPRET", None)
-            if old:
-                os.environ["SOLR_PALLAS_INTERPRET"] = old
+        cfg = dataclasses.replace(cfg, backend=backend)
+        img, t = render_sample(scene, CAM, cfg)
+        return np.asarray(img), np.asarray(t)
 
     def test_kernel_path_matches_xla_path(self, tri_scene):
         cfg = st.RenderConfig(
@@ -331,8 +323,8 @@ class TestFullPathInterpret:
             # through the kernels.
             packet_max_blocks=4, packet_tile_cand=8,
         )
-        img_k, t_k = self._render(tri_scene, cfg, interpret=True)
-        img_x, t_x = self._render(tri_scene, cfg, interpret=False)
+        img_k, t_k = self._render(tri_scene, cfg, "interpret")
+        img_x, t_x = self._render(tri_scene, cfg, "xla")
         np.testing.assert_allclose(img_k, img_x, atol=1e-5)
         np.testing.assert_allclose(t_k, t_x, rtol=1e-5)
 
@@ -342,7 +334,7 @@ class TestUnionNetOverflow:
     preserve exactness: force it by shrinking the union width to 2."""
 
     def test_tiny_ucap_still_exact(self, tri_scene, monkeypatch):
-        from solr_tpu.ops import traverse as tv
+        from solstice.ops import traverse as tv
 
         cfg_p = st.RenderConfig(
             width=32, height=32, max_bounces=2, traversal="packet",

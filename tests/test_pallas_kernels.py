@@ -1,23 +1,18 @@
-"""Pallas strip-interval sweep kernels vs the XLA block path, in
-interpret mode (SURVEY.md section 5: interpret mode is the kernel
-"sanitizer").  The SAME kernels are additionally compiled and run on
-real hardware by tests/test_tpu_smoke.py — round 2 proved
-interpret-green != TPU-green, so CPU interpret coverage alone is no
-longer the gate."""
+"""Triton strip-sweep kernels (solstice.ops.sweep_kernel) vs the XLA
+block path, in interpret mode (SURVEY.md section 5: interpret mode is
+the kernel "sanitizer"), plus the wrapper's padding, the lowering to
+Triton IR and the choice of route.  The compiled kernels are checked
+against the XLA path on the card by chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import solr_tpu as st
-from solr_tpu.ops import packet as pk
-from solr_tpu.ops.camera import camera_rays
-from solr_tpu.ops.pallas_kernels import (
-    make_rays16t,
-    sweep_closest,
-    sweep_transmittance,
-)
+import solstice as st
+from solstice.ops import packet as pk
+from solstice.ops.camera import camera_rays
+from solstice.ops.sweep_kernel import sweep_closest, sweep_transmittance
 
 from scenes_fixtures import random_tri_field
 
@@ -44,12 +39,16 @@ def _select(accel, o_t, d_t, tm_t=None, live=None):
     )
 
 
+def _strips(a, g):
+    """(S, SB, ...) tile arrays -> (S*G, SB/G, ...) strip rows."""
+    return a.reshape((a.shape[0] * g, a.shape[1] // g) + a.shape[2:])
+
+
 def _xla_closest(accel, o_t, d_t, cand, counts, prim="tri"):
-    """XLA mirror at strip granularity (what traverse uses off-TPU)."""
+    """XLA mirror at strip granularity (the plain route)."""
     s, g, k = cand.shape
-    ssb = o_t.shape[1] // g
     bt, bi = pk.tri_blocks_closest(
-        accel.packed, o_t.reshape(-1, ssb, 3), d_t.reshape(-1, ssb, 3),
+        accel.packed, _strips(o_t, g), _strips(d_t, g),
         cand.reshape(-1, k), counts.reshape(-1), 1e-4, prim=prim,
     )
     return bt.reshape(s, -1), bi.reshape(s, -1)
@@ -57,13 +56,40 @@ def _xla_closest(accel, o_t, d_t, cand, counts, prim="tri"):
 
 def _xla_trans(accel, o_t, d_t, tm_t, cand, counts, prim="tri"):
     s, g, k = cand.shape
-    ssb = o_t.shape[1] // g
     tr = pk.tri_blocks_transmittance(
-        accel.packed, o_t.reshape(-1, ssb, 3), d_t.reshape(-1, ssb, 3),
-        tm_t.reshape(-1, ssb), cand.reshape(-1, k),
-        counts.reshape(-1), 1e-4, prim=prim,
+        accel.packed, _strips(o_t, g), _strips(d_t, g), _strips(tm_t, g),
+        cand.reshape(-1, k), counts.reshape(-1), 1e-4, prim=prim,
     )
     return tr.reshape(s, -1)
+
+
+def _kernel_closest(accel, o_t, d_t, cand, counts, nearb, prim="tri",
+                    t_cap=None, live=None, **kw):
+    """Kernel at strip granularity, reshaped back to (S, SB)."""
+    s, g, k = cand.shape
+    if t_cap is None:
+        t_cap = jnp.full(o_t.shape[:2], 1e30, jnp.float32)
+    if live is None:
+        live = jnp.ones(o_t.shape[:2], bool)
+    t, i, nv = sweep_closest(
+        accel.packed, _strips(o_t, g), _strips(d_t, g), _strips(t_cap, g),
+        _strips(live, g), cand.reshape(-1, k), counts.reshape(-1),
+        nearb.reshape(-1, k), 1e-4, prim=prim, interpret=True, **kw,
+    )
+    return t.reshape(s, -1), i.reshape(s, -1), nv.reshape(s, g)
+
+
+def _kernel_trans(accel, o_t, d_t, tm_t, cand, counts, prim="tri",
+                  live=None, **kw):
+    s, g, k = cand.shape
+    if live is None:
+        live = jnp.ones(o_t.shape[:2], bool)
+    tr, nv = sweep_transmittance(
+        accel.packed, _strips(o_t, g), _strips(d_t, g), _strips(tm_t, g),
+        _strips(live, g), cand.reshape(-1, k), counts.reshape(-1), 1e-4,
+        prim=prim, interpret=True, **kw,
+    )
+    return tr.reshape(s, -1), nv.reshape(s, g)
 
 
 @pytest.fixture(scope="module")
@@ -79,11 +105,8 @@ class TestClosest:
     def test_matches_xla_strips(self, setup):
         accel, o_t, d_t, cand, counts, nearb = setup
         t_x, i_x = _xla_closest(accel, o_t, d_t, cand, counts)
-        rays_t = make_rays16t(o_t, d_t)
-        t_p, i_p, nv = sweep_closest(
-            accel.packed, rays_t, cand, counts, nearb, 1e-4,
-            interpret=True,
-        )
+        t_p, i_p, nv = _kernel_closest(accel, o_t, d_t, cand, counts,
+                                       nearb)
         np.testing.assert_allclose(np.asarray(t_p), np.asarray(t_x),
                                    rtol=1e-6)
         hit = np.asarray(t_x) < 1e30
@@ -91,22 +114,16 @@ class TestClosest:
             np.asarray(i_p)[hit], np.asarray(i_x)[hit]
         )
         # Early-out must never visit more than the strip list totals.
-        nv = np.asarray(nv)
-        assert (nv <= np.asarray(counts).sum(axis=1)).all()
+        assert (np.asarray(nv) <= np.asarray(counts)).all()
 
     def test_early_out_does_not_change_result(self, setup):
         """Early termination must be conservative: compare against a run
         where the entry bounds are all zero (no skipping possible)."""
         accel, o_t, d_t, cand, counts, nearb = setup
-        rays_t = make_rays16t(o_t, d_t)
-        t_e, _, nv_e = sweep_closest(
-            accel.packed, rays_t, cand, counts, nearb, 1e-4,
-            interpret=True,
-        )
-        t_n, _, nv_n = sweep_closest(
-            accel.packed, rays_t, cand, counts,
-            jnp.zeros_like(nearb), 1e-4, interpret=True,
-        )
+        t_e, _, nv_e = _kernel_closest(accel, o_t, d_t, cand, counts,
+                                       nearb)
+        t_n, _, nv_n = _kernel_closest(accel, o_t, d_t, cand, counts,
+                                       jnp.zeros_like(nearb))
         np.testing.assert_allclose(np.asarray(t_e), np.asarray(t_n),
                                    rtol=1e-6)
         assert np.asarray(nv_e).sum() <= np.asarray(nv_n).sum()
@@ -143,49 +160,57 @@ class TestClosest:
         o_t = o[perm].reshape(-1, SB, 3).astype(jnp.float32)
         d_t = d[perm].reshape(-1, SB, 3).astype(jnp.float32)
         cand, counts, nearb, _ = _select(accel, o_t, d_t)
-        rays_t = make_rays16t(o_t, d_t)
-        _, _, nv_e = sweep_closest(
-            accel.packed, rays_t, cand, counts, nearb, 1e-4,
-            interpret=True,
-        )
-        _, _, nv_n = sweep_closest(
-            accel.packed, rays_t, cand, counts,
-            jnp.zeros_like(nearb), 1e-4, interpret=True,
-        )
+        _, _, nv_e = _kernel_closest(accel, o_t, d_t, cand, counts, nearb)
+        _, _, nv_n = _kernel_closest(accel, o_t, d_t, cand, counts,
+                                     jnp.zeros_like(nearb))
         assert np.asarray(nv_e).sum() < np.asarray(nv_n).sum()
 
-    def test_chunked_matches_unchunked(self, setup):
-        """The lax.map tile chunking (SMEM guard) must be invisible."""
+    def test_zero_count_strips_return_at_once(self, setup):
+        """Parked tiles (live=0) select zero candidates; their strips
+        visit nothing and report misses, and the strips that do have
+        lists are unaffected by sharing the launch with them."""
         accel, o_t, d_t, cand, counts, nearb = setup
-        rays_t = make_rays16t(o_t, d_t)
-        t_1, i_1, _ = sweep_closest(
-            accel.packed, rays_t, cand, counts, nearb, 1e-4,
-            interpret=True,
-        )
-        t_c, i_c, _ = sweep_closest(
-            accel.packed, rays_t, cand, counts, nearb, 1e-4,
-            interpret=True, chunk=4,  # forces padding + chunks of 4
-        )
-        np.testing.assert_allclose(np.asarray(t_c), np.asarray(t_1),
-                                   rtol=1e-6)
+        live = jnp.zeros(o_t.shape[:2], bool).at[::2].set(True)
+        cand_p, counts_p, nearb_p, _ = _select(accel, o_t, d_t, live=live)
+        assert int(np.asarray(counts_p)[1::2].sum()) == 0
+        t_p, i_p, nv = _kernel_closest(accel, o_t, d_t, cand_p, counts_p,
+                                       nearb_p, live=live)
+        assert int(np.asarray(nv)[1::2].sum()) == 0
+        assert (np.asarray(i_p)[1::2] == -1).all()
+        assert (np.asarray(t_p)[1::2] > 1e29).all()
+        t_x, _ = _xla_closest(accel, o_t, d_t, cand_p, counts_p)
+        np.testing.assert_allclose(np.asarray(t_p)[::2],
+                                   np.asarray(t_x)[::2], rtol=1e-6)
+
+    @pytest.mark.parametrize("sub", [16, 32])
+    def test_column_chunks_invisible(self, setup, sub):
+        """Sweeping a slab in narrower column chunks must not change t
+        or the winning index (ties resolve to the lowest primitive)."""
+        accel, o_t, d_t, cand, counts, nearb = setup
+        t_1, i_1, _ = _kernel_closest(accel, o_t, d_t, cand, counts,
+                                      nearb)
+        t_c, i_c, _ = _kernel_closest(accel, o_t, d_t, cand, counts,
+                                      nearb, sub=sub)
+        np.testing.assert_array_equal(np.asarray(t_c), np.asarray(t_1))
         np.testing.assert_array_equal(np.asarray(i_c), np.asarray(i_1))
 
-    def test_parked_rays_cost_nothing(self, setup):
-        """Parked tiles (live=0) select zero candidates and the kernel
-        never runs a strip for them."""
+    def test_odd_strip_padded_to_pow2(self, setup):
+        """A strip whose ray count is no power of two (odd tile shapes)
+        is padded with parked rays inside the wrapper and cut back."""
         accel, o_t, d_t, *_ = setup
-        live = jnp.zeros(o_t.shape[:2], bool)
-        cand, counts, nearb, _ = _select(accel, o_t, d_t, live=live)
-        assert int(np.asarray(counts).sum()) == 0
-        rays_t = make_rays16t(
-            o_t, d_t, live_t=jnp.zeros(o_t.shape[:2], jnp.float32)
+        o_3 = o_t[:, :48].reshape(-1, 48, 3)  # one 48-ray strip per tile
+        d_3 = d_t[:, :48].reshape(-1, 48, 3)
+        cand, counts, nearb, _ = _select(accel, o_3, d_3)
+        assert cand.shape[1] == 1
+        t_x, i_x = _xla_closest(accel, o_3, d_3, cand, counts)
+        t_p, i_p, _ = _kernel_closest(accel, o_3, d_3, cand, counts, nearb)
+        assert t_p.shape == t_x.shape == (o_3.shape[0], 48)
+        np.testing.assert_allclose(np.asarray(t_p), np.asarray(t_x),
+                                   rtol=1e-6)
+        hit = np.asarray(t_x) < 1e30
+        np.testing.assert_array_equal(
+            np.asarray(i_p)[hit], np.asarray(i_x)[hit]
         )
-        t_p, i_p, nv = sweep_closest(
-            accel.packed, rays_t, cand, counts, nearb, 1e-4,
-            interpret=True,
-        )
-        assert int(np.asarray(nv).sum()) == 0
-        assert (np.asarray(i_p) == -1).all()
 
     def test_strip_lists_conservative(self, setup):
         """Exactness of selection: the strip sweep over the per-strip
@@ -266,11 +291,8 @@ class TestSphereSweep:
         accel, o_t, d_t, cand, counts, nearb = sph_setup
         t_x, i_x = _xla_closest(accel, o_t, d_t, cand, counts,
                                 prim="sphere")
-        rays_t = make_rays16t(o_t, d_t)
-        t_p, i_p, _ = sweep_closest(
-            accel.packed, rays_t, cand, counts, nearb, 1e-4,
-            interpret=True, prim="sphere",
-        )
+        t_p, i_p, _ = _kernel_closest(accel, o_t, d_t, cand, counts,
+                                      nearb, prim="sphere")
         t_x, t_p = np.asarray(t_x), np.asarray(t_p)
         hit = t_x < 1e30
         assert hit.any()
@@ -284,18 +306,15 @@ class TestSphereSweep:
         t_max = jnp.full(o_t.shape[:2], 40.0, jnp.float32)
         tr_x = _xla_trans(accel, o_t, d_t, t_max, cand, counts,
                           prim="sphere")
-        rays_t = make_rays16t(o_t, d_t, tmax_t=t_max)
-        tr_p, _ = sweep_transmittance(
-            accel.packed, rays_t, cand, counts, 1e-4, interpret=True,
-            prim="sphere",
-        )
+        tr_p, _ = _kernel_trans(accel, o_t, d_t, t_max, cand, counts,
+                                prim="sphere")
         np.testing.assert_allclose(np.asarray(tr_p), np.asarray(tr_x),
                                    atol=1e-6)
 
     def test_sphere_blocks_match_bruteforce(self, sph_setup):
         """The sphere block test (XLA form) vs isect.sphere_t over every
         sphere — pins the packed layout + intersection math."""
-        from solr_tpu.ops import intersect as isect
+        from solstice.ops import intersect as isect
         from scenes_fixtures import random_sphere_field
 
         scene = random_sphere_field(900).build(bvh_threshold=64)
@@ -328,10 +347,7 @@ class TestTransmittance:
         t_max = jnp.full(o_t.shape[:2], 50.0, jnp.float32)
         cand, counts, nearb, _ = _select(accel, o_t, d_t, tm_t=t_max)
         tr_x = _xla_trans(accel, o_t, d_t, t_max, cand, counts)
-        rays_t = make_rays16t(o_t, d_t, tmax_t=t_max)
-        tr_p, _ = sweep_transmittance(
-            accel.packed, rays_t, cand, counts, 1e-4, interpret=True
-        )
+        tr_p, _ = _kernel_trans(accel, o_t, d_t, t_max, cand, counts)
         np.testing.assert_allclose(np.asarray(tr_p), np.asarray(tr_x),
                                    rtol=1e-6)
 
@@ -341,16 +357,13 @@ class TestTransmittance:
         accel, o_t, d_t, *_ = setup
         t_max = jnp.full(o_t.shape[:2], 50.0, jnp.float32)
         cand, counts, nearb, _ = _select(accel, o_t, d_t, tm_t=t_max)
-        rays_t = make_rays16t(o_t, d_t, tmax_t=t_max)
-        tr, nv = sweep_transmittance(
-            accel.packed, rays_t, cand, counts, 1e-4, interpret=True
-        )
+        tr, nv = _kernel_trans(accel, o_t, d_t, t_max, cand, counts)
         # On an opaque random field many strips extinguish early.
         assert np.asarray(nv).sum() <= np.asarray(counts).sum()
 
 
 class TestCylinderSweep:
-    """Cylinder-pool sweep (PDB sticks / SWC neurite path): Pallas vs
+    """Cylinder-pool sweep (PDB sticks / SWC neurite path): kernel vs
     XLA block path vs per-cylinder brute force."""
 
     @pytest.fixture(scope="class")
@@ -368,11 +381,8 @@ class TestCylinderSweep:
         scene, accel, o_t, d_t, cand, counts, nearb = cyl_setup
         t_x, i_x = _xla_closest(accel, o_t, d_t, cand, counts,
                                 prim="cyl")
-        rays_t = make_rays16t(o_t, d_t)
-        t_p, i_p, _ = sweep_closest(
-            accel.packed, rays_t, cand, counts, nearb, 1e-4,
-            interpret=True, prim="cyl",
-        )
+        t_p, i_p, _ = _kernel_closest(accel, o_t, d_t, cand, counts,
+                                      nearb, prim="cyl")
         t_x, t_p = np.asarray(t_x), np.asarray(t_p)
         hit = t_x < 1e30
         assert hit.any()
@@ -384,7 +394,7 @@ class TestCylinderSweep:
     def test_blocks_match_bruteforce(self, cyl_setup):
         """All-candidate block sweep vs isect.cylinder_t over the whole
         pool — pins the packed layout + capped-cylinder math."""
-        from solr_tpu.ops import intersect as isect
+        from solstice.ops import intersect as isect
 
         scene, accel, o_t, d_t, _c, _n, _nb = cyl_setup
         nb = accel.packed.shape[0]
@@ -418,11 +428,8 @@ class TestCylinderSweep:
         cand, counts, nearb, _ = _select(accel, o_t, d_t, tm_t=t_max)
         tr_x = _xla_trans(accel, o_t, d_t, t_max, cand, counts,
                           prim="cyl")
-        rays_t = make_rays16t(o_t, d_t, tmax_t=t_max)
-        tr_p, _ = sweep_transmittance(
-            accel.packed, rays_t, cand, counts, 1e-4, interpret=True,
-            prim="cyl",
-        )
+        tr_p, _ = _kernel_trans(accel, o_t, d_t, t_max, cand, counts,
+                                prim="cyl")
         np.testing.assert_allclose(np.asarray(tr_p), np.asarray(tr_x),
                                    atol=1e-6)
 
@@ -437,9 +444,105 @@ class TestCylinderSweep:
                                 packet_tile_h=16)
         cfg_w = st.RenderConfig(width=32, height=32, max_bounces=2,
                                 traversal="while")
-        from solr_tpu.ops.render import render_sample
+        from solstice.ops.render import render_sample
 
         img_p, _ = render_sample(scene, CAM, cfg_p)
         img_w, _ = render_sample(scene, CAM, cfg_w)
         np.testing.assert_allclose(np.asarray(img_p), np.asarray(img_w),
                                    atol=1e-6)
+
+
+class TestRoute:
+    """RenderConfig.backend picks the strip-sweep route explicitly; the
+    kernel is never reached by a silent fallback."""
+
+    @pytest.mark.parametrize("backend,route", [
+        ("auto", "xla"), ("xla", "xla"), ("interpret", "interpret"),
+    ])
+    def test_route_on_cpu(self, backend, route):
+        cfg = st.RenderConfig(width=32, height=32, backend=backend)
+        assert cfg.sweep_route() == route
+        assert cfg.packet_spec()[-1] == route
+
+    @pytest.mark.parametrize("backend", ["triton", "pallas", "jnp"])
+    def test_kernel_or_unknown_route_raises_on_cpu(self, backend):
+        cfg = st.RenderConfig(width=32, height=32, backend=backend)
+        with pytest.raises(ValueError):
+            cfg.sweep_route()
+
+
+class TestWrapper:
+    def test_non_pow2_block_raises(self):
+        """The kernel's column chunks need a power-of-two BLOCK."""
+        n, ssb = 2, 32
+        packed = jnp.zeros((1, 16, 384), jnp.float32)
+        o = jnp.zeros((n, ssb, 3), jnp.float32)
+        t = jnp.ones((n, ssb), jnp.float32)
+        live = jnp.ones((n, ssb), bool)
+        cand = jnp.zeros((n, 4), jnp.int32)
+        counts = jnp.zeros((n,), jnp.int32)
+        with pytest.raises(ValueError, match="power-of-two"):
+            sweep_closest(packed, o, o, t, live, cand, counts, t[:, :4],
+                          1e-4, interpret=True)
+
+
+class TestLowering:
+    """Each kernel lowers to Triton IR for CUDA from the CPU (the
+    GPU's compiler itself only runs on the card)."""
+
+    @pytest.mark.parametrize("prim", ["tri", "sphere", "cyl"])
+    @pytest.mark.parametrize("closest", [True, False])
+    def test_lowers_for_cuda(self, prim, closest):
+        import jax.export
+
+        n, ssb, k, nb = 4, 32, 8, 3
+        packed = jnp.zeros((nb, 16, pk.BLOCK), jnp.float32)
+        o = jnp.zeros((n, ssb, 3), jnp.float32)
+        t = jnp.ones((n, ssb), jnp.float32)
+        live = jnp.ones((n, ssb), bool)
+        cand = jnp.zeros((n, k), jnp.int32)
+        counts = jnp.zeros((n,), jnp.int32)
+        if closest:
+            fn = lambda *a: sweep_closest(*a, 1e-4, prim=prim)
+            args = (packed, o, o, t, live, cand, counts, t[:, :k])
+        else:
+            fn = lambda *a: sweep_transmittance(*a, 1e-4, prim=prim)
+            args = (packed, o, o, t, live, cand, counts)
+        exp = jax.export.export(
+            jax.jit(fn), platforms=["cuda"],
+            disabled_checks=[jax.export.DisabledSafetyCheck.custom_call(
+                "__gpu$xla.gpu.triton")],
+        )(*args)
+        assert "__gpu$xla.gpu.triton" in exp.mlir_module()
+
+
+@pytest.mark.gpu
+class TestOnCard:
+    """The compiled kernels against the XLA route on the card, at the
+    small test sizes (chip_smoke.py runs the headline widths)."""
+
+    @pytest.mark.parametrize("prim", ["tri", "sphere", "cyl"])
+    def test_compiled_matches_xla(self, gpu, prim):
+        from scenes_fixtures import (random_cylinder_field,
+                                     random_sphere_field)
+
+        field = {"tri": random_tri_field, "sphere": random_sphere_field,
+                 "cyl": random_cylinder_field}[prim]
+        scene = field(900).build(bvh_threshold=64)
+        accel = {"tri": scene.tri_accel, "sphere": scene.sph_accel,
+                 "cyl": scene.cyl_accel}[prim]
+        o_t, d_t = _tile_rays()
+        cand, counts, nearb, _ = _select(accel, o_t, d_t)
+        s, g, k = cand.shape
+        t_p, i_p, _ = jax.jit(
+            lambda *a: sweep_closest(*a, 1e-4, prim=prim)
+        )(accel.packed, _strips(o_t, g), _strips(d_t, g),
+          jnp.full((s * g, SB // g), 1e30, jnp.float32),
+          jnp.ones((s * g, SB // g), bool), cand.reshape(-1, k),
+          counts.reshape(-1), nearb.reshape(-1, k))
+        t_x, i_x = _xla_closest(accel, o_t, d_t, cand, counts, prim=prim)
+        t_x = np.asarray(t_x).reshape(-1)
+        t_p = np.asarray(t_p).reshape(-1)
+        hit = t_x < 1e30
+        # FMA contraction differs between the two compilers.
+        np.testing.assert_allclose(t_p[hit], t_x[hit], rtol=1e-5)

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import solr_tpu as st
-from solr_tpu.ops.render import render_sample
-from solr_tpu.parallel import (
+import solstice as st
+from solstice.ops.render import render_sample
+from solstice.parallel import (
     make_mesh,
     make_sharded_train_step,
     shard_render,
@@ -121,7 +121,7 @@ class TestShardedGrads:
 
 class TestHostChipMesh:
     def test_render_matches_single_device(self, scene, cam):
-        from solr_tpu.parallel import make_host_chip_mesh
+        from solstice.parallel import make_host_chip_mesh
 
         mesh = make_host_chip_mesh(n_hosts=2)  # 2 "hosts" x 4 "chips"
         assert mesh.axis_names == ("host", "chip")
@@ -134,7 +134,7 @@ class TestHostChipMesh:
         )
 
     def test_grads_match_on_host_chip_mesh(self, scene, cam):
-        from solr_tpu.parallel import make_host_chip_mesh
+        from solstice.parallel import make_host_chip_mesh
 
         mesh = make_host_chip_mesh(n_hosts=2)
         target, _ = render_sample(scene, cam, CFG)
@@ -174,7 +174,7 @@ class TestReduceScatter:
         """ZeRO-1 sharded-optimizer step == replicated-optimizer step."""
         import optax
 
-        from solr_tpu.parallel import init_zero_opt_state
+        from solstice.parallel import init_zero_opt_state
 
         mesh = make_mesh(8)
         target, _ = render_sample(scene, cam, CFG)
@@ -207,7 +207,7 @@ class TestReduceScatter:
 
 class TestDistributedEntry:
     def test_single_process_noop(self):
-        from solr_tpu.parallel import initialize_distributed, process_info
+        from solstice.parallel import initialize_distributed, process_info
 
         info = initialize_distributed()
         assert info["process_count"] == 1
@@ -223,9 +223,9 @@ class TestRingMode:
         import numpy as np
 
         from scenes_fixtures import random_tri_field
-        from solr_tpu.ops import intersect as isect
-        from solr_tpu.parallel import ring_closest_hit
-        from solr_tpu.parallel.mesh import make_mesh
+        from solstice.ops import intersect as isect
+        from solstice.parallel import ring_closest_hit
+        from solstice.parallel.mesh import make_mesh
 
         scene = random_tri_field(500).build(bvh_threshold=10**9)
         mesh = make_mesh(8)

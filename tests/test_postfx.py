@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import solr_tpu as st
-from solr_tpu.ops.camera import camera_rays
-from solr_tpu.ops.postfx import (
+import solstice as st
+from solstice.ops.camera import camera_rays
+from solstice.ops.postfx import (
     ambient_occlusion, cartoon, depth_of_field, enlightment,
 )
 
@@ -130,7 +130,7 @@ class TestCameraModes:
         assert o[16, 4, 0] < o[16, 36, 0]
 
     def test_side_by_side_renders(self):
-        from solr_tpu.scenes import make_scene
+        from solstice.scenes import make_scene
 
         demo = make_scene("cornell")
         cfg = st.RenderConfig(width=64, height=32, max_bounces=2,
@@ -168,8 +168,8 @@ class TestSoftShadows:
         light samples at high graphicsLevel)."""
         import dataclasses
 
-        from solr_tpu.ops.shade import phong_shade
-        from solr_tpu.ops.traverse import SurfaceInfo
+        from solstice.ops.shade import phong_shade
+        from solstice.ops.traverse import SurfaceInfo
 
         b = st.SceneBuilder()
         floor = b.add_material(color=(1, 1, 1, 1))

@@ -11,9 +11,9 @@ import jax
 import numpy as np
 import pytest
 
-import solr_tpu as st
-from solr_tpu.oracle.cpu_tracer import oracle_render
-from solr_tpu.ops.render import render_sample
+import solstice as st
+from solstice.oracle import assert_images_match, oracle_render
+from solstice.ops.render import render_sample
 
 from scenes_fixtures import (
     cornell_box,
@@ -22,24 +22,6 @@ from scenes_fixtures import (
     random_tri_field,
     tri_quad_scene,
 )
-
-
-def assert_images_match(img, ref, mean_tol=2e-3, pix_tol=2e-2, outliers=0.01):
-    """Inlier pixels must agree to float tolerance; a small fraction of
-    outliers is allowed for discrete hit-selection flips on silhouettes
-    and plane seams (f32 renderer vs f64 oracle tie-breaking)."""
-    img = np.asarray(img, np.float64)[..., :3]
-    ref = np.asarray(ref, np.float64)[..., :3]
-    err = np.abs(img - ref).max(axis=-1)
-    assert np.isfinite(img).all(), "non-finite pixels"
-    inlier = err <= pix_tol
-    frac_bad = 1.0 - inlier.mean()
-    assert frac_bad < outliers, (
-        f"{frac_bad:.2%} pixels exceed {pix_tol} (max {err.max():.3f})"
-    )
-    assert err[inlier].mean() < mean_tol, (
-        f"inlier mean err {err[inlier].mean():.2e}"
-    )
 
 
 def _render(scene, cam, cfg):
@@ -143,7 +125,7 @@ class TestCameraModes:
         assert np.isfinite(np.asarray(img)).all()
 
     def test_progressive_accumulation_converges(self):
-        from solr_tpu.ops.render import accumulate
+        from solstice.ops.render import accumulate
 
         scene = cornell_box(n_spheres=2).build()
         cfg = st.RenderConfig(width=16, height=16, max_bounces=1,

@@ -5,9 +5,9 @@ corpus, SURVEY.md section 4)."""
 import numpy as np
 import pytest
 
-import solr_tpu as st
-from solr_tpu.ops.render import render_sample
-from solr_tpu.scenes import SCENE_REGISTRY, make_scene
+import solstice as st
+from solstice.ops.render import render_sample
+from solstice.scenes import SCENE_REGISTRY, make_scene
 
 CFG = st.RenderConfig(width=24, height=24, max_bounces=2)
 
@@ -31,19 +31,19 @@ def test_animate_produces_distinct_frames():
 
 
 def test_viewer_cli(tmp_path):
-    from solr_tpu.viewer import main
+    from solstice.viewer import main
 
     out = str(tmp_path / "out.png")
     main(["--scene", "cornell", "--out", out, "--width", "32",
           "--height", "32", "--bounces", "1"])
-    from solr_tpu.io import load_image
+    from solstice.io import load_image
 
     img = load_image(out)
     assert img.shape == (32, 32, 4)
 
 
 def test_viewer_list(capsys):
-    from solr_tpu.viewer import main
+    from solstice.viewer import main
 
     main(["--list"])
     out = capsys.readouterr().out
@@ -55,8 +55,8 @@ def test_engine_frame_morphing():
     (reference: GPUKernel::setNbFrames/nextFrame morphing)."""
     import numpy as np
 
-    import solr_tpu as st
-    from solr_tpu.engine import morph_scenes
+    import solstice as st
+    from solstice.engine import morph_scenes
 
     def make(z):
         b = st.SceneBuilder()

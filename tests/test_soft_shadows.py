@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import solr_tpu as st
-from solr_tpu.ops.render import render_sample
-from solr_tpu.ops.shade import ball_jitter
+import solstice as st
+from solstice.ops.render import render_sample
+from solstice.ops.shade import ball_jitter
 
 
 class TestBallJitter:

@@ -1,7 +1,6 @@
 """Measure per-ray / per-strip / per-tile slab-interval candidate stats.
 
-Round-5 design probe (VERDICT r04 missing #1): the per-ray slab-interval
-traversal needs a static per-strip candidate width K.  This script
+Design probe: the per-ray slab-interval traversal needs a static per-strip candidate width K.  This script
 measures, on the bench scene at a configurable scale:
 
   count  = number of blocks whose slab interval intersects the ray
@@ -25,12 +24,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("SOLR_BENCH_TRIS", "200000")
 os.environ.setdefault("SOLR_BENCH_WIDTH", "256")
 os.environ.setdefault("SOLR_BENCH_HEIGHT", "256")
-os.environ.setdefault("SOLR_NO_PALLAS", "1")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-import jax
+import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/solr_tpu_jax_cache")
+from solstice.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,7 +49,7 @@ def stats(name, x):
 def interval_stats(label, o, d, done, accel, strip=32):
     """o/d (R, 3); done (R,) per-ray completion bound
     (min(best_t, t_cap) for closest; t_max for shadow)."""
-    from solr_tpu.ops.traverse import _ray_block_slabs
+    from solstice.ops.traverse import _ray_block_slabs
 
     slab = jax.jit(
         lambda o, d: _ray_block_slabs(o, d, accel.block_bounds, 1e-4)
@@ -94,10 +94,10 @@ def main():
     scene, cam, cfg = bench_mod.build_scene()
     print(f"scene built in {time.time() - t0:.1f}s; "
           f"BLOCK={os.environ.get('SOLR_PACKET_BLOCK', '256')}")
-    from solr_tpu.constants import RAY_EPS
-    from solr_tpu.ops import packet as pk
-    from solr_tpu.ops.camera import camera_rays
-    from solr_tpu.ops.traverse import (
+    from solstice.constants import RAY_EPS
+    from solstice.ops import packet as pk
+    from solstice.ops.camera import camera_rays
+    from solstice.ops.traverse import (
         _scene_box, scene_closest_hit, surface_at,
     )
 

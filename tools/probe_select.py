@@ -1,9 +1,7 @@
 #!/usr/bin/env python
-"""Stage-level timing of strip_interval_select on the real chip: which
-of (tile cull + tile top_k | bounds gather | per-ray slabs | strip
-reduce | strip top_k + compact) owns the 57 ms the round-5 profile
-attributed to selection (prof_small: select 57.5 ms of a 134 ms frame
-at 200k/256^2 — the sweep itself is ~6 ms).
+"""Stage-level timing of strip_interval_select on the card: which of
+(tile cull + tile top_k | bounds gather | per-ray slabs | strip reduce |
+strip top_k + compact) owns the selection time.
 
     SOLR_BENCH_TRIS=200000 SOLR_BENCH_WIDTH=256 SOLR_BENCH_HEIGHT=256 \
         SOLR_PACKET_BLOCK=512 python tools/probe_select.py
@@ -16,10 +14,11 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/solr_jax_cache_tpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+from solstice.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache(min_compile_secs=5)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -41,9 +40,9 @@ def timeit(fn, *args, reps=5):
 
 def main():
     import bench as bench_mod
-    from solr_tpu.constants import T_FAR
-    from solr_tpu.ops import packet as pk
-    from solr_tpu.ops.camera import camera_rays
+    from solstice.constants import T_FAR
+    from solstice.ops import packet as pk
+    from solstice.ops.camera import camera_rays
 
     scene, cam, cfg = bench_mod.build_scene()
     accel = scene.tri_accel

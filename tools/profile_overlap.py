@@ -1,15 +1,12 @@
 """Capture a jax.profiler trace of the reduce-scatter train step on the
 8-virtual-device CPU mesh and report whether the gradient collective
-overlaps backward compute (VERDICT r02 weak #6: the overlap was
-asserted in parallel/grads.py but never measured).
+overlaps backward compute.
 
 Writes a TensorBoard/Perfetto trace directory and prints a summary of
 collective vs compute event spans parsed from the trace.  Run:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python tools/profile_overlap.py /tmp/overlap_trace
-
-The committed analysis lives in OVERLAP.md.
+        python tools/profile_overlap.py [trace_dir]
 """
 
 import glob
@@ -37,10 +34,17 @@ import numpy as np
 import optax
 
 
-def main(out_dir="/tmp/overlap_trace"):
+def main(out_dir=None):
+    from solstice.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
+    if out_dir is None:
+        import tempfile
+
+        out_dir = os.path.join(tempfile.gettempdir(), "overlap_trace")
     import __graft_entry__ as g
-    import solr_tpu as st
-    from solr_tpu.parallel import (
+    import solstice as st
+    from solstice.parallel import (
         init_zero_opt_state, make_mesh, make_sharded_train_step,
         shard_render,
     )

@@ -1,14 +1,13 @@
 #!/usr/bin/env python
 """BASELINE config #5 artifact: 1M-triangle scene, 1080p STEREO pair,
-tile-sharded rendering with gradient all-reduce (VERDICT r04 missing
-#3: "nothing renders 1080p or stereo in any bench").
+tile-sharded rendering with gradient all-reduce.
 
 Two measurements, one JSON artifact (ARTIFACT_stereo1080p.json):
 
   real chip   the bench's 1M-tri terrain at 1920x1080 SIDE_BY_SIDE
               stereo (the reference's k_3DVisionRenderer analog —
               ops/camera.py picks the eye per pixel column), rendered
-              on the TPU through the packet path; rays/s + frame time.
+              on the card through the packet path; rays/s + frame time.
   virtual     subprocess on 8 virtual CPU devices: the SAME stereo
               config (reduced triangle count for CPU time) rendered
               (a) row-sharded over the mesh via shard_render and
@@ -41,16 +40,15 @@ ARTIFACT = os.path.join(REPO, "ARTIFACT_stereo1080p.json")
 
 
 def _cfg_stereo(width=W, height=H, tile_h=9):
-    import solr_tpu as st
+    import solstice as st
 
     return dict(
         width=width, height=height, max_bounces=2,
         camera_mode=st.CameraMode.SIDE_BY_SIDE,
         gradient_background=True,
         # Sharded runs need 32x9 tiles (9 divides the 135-row 8-way
-        # device bands); the single-chip run uses 32x8 (256 rays — the
-        # lane-aligned shape every other frame uses; a 288-ray tile's
-        # (1, 16, 288) blocks crash the remote Mosaic compile helper).
+        # device bands); the single-card run uses 32x8 (256 rays, the
+        # tile size every other frame uses).
         packet_tile_w=32, packet_tile_h=tile_h,
     )
 
@@ -58,7 +56,7 @@ def _cfg_stereo(width=W, height=H, tile_h=9):
 def _build(n_tris, width=W, height=H, tile_h=9):
     import bench as bench_mod
     import dataclasses
-    import solr_tpu as st
+    import solstice as st
 
     bench_mod.N_TRIS = n_tris
     bench_mod.WIDTH, bench_mod.HEIGHT = width, height
@@ -70,12 +68,13 @@ def _build(n_tris, width=W, height=H, tile_h=9):
 def real_chip():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/solr_jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    from solstice.utils.cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_secs=5)
     import jax.numpy as jnp
     import numpy as np
 
-    from solr_tpu.ops.render import render_sample
+    from solstice.ops.render import render_sample
 
     scene, cam, cfg = _build(TRIS, tile_h=8)  # single-chip: 1080 = 135*8
 
@@ -97,9 +96,12 @@ def real_chip():
     n_lights = scene.lights.position.shape[0]
     rays = cfg.n_pixels * cfg.max_bounces * (1 + n_lights)
     try:
-        from solr_tpu.io.image import save_image
+        from solstice.io.image import save_image
 
-        save_image("/tmp/solr_stereo_1080p.png",
+        import tempfile
+
+        save_image(os.path.join(tempfile.gettempdir(),
+                                "solr_stereo_1080p.png"),
                    np.asarray(img)[..., :3])
     except Exception:
         pass
@@ -124,8 +126,8 @@ def virtual_sharded():
     import numpy as np
     import optax
 
-    from solr_tpu.ops.render import render_sample
-    from solr_tpu.parallel import (
+    from solstice.ops.render import render_sample
+    from solstice.parallel import (
         make_mesh, make_sharded_train_step, shard_render,
     )
 
