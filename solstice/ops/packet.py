@@ -982,11 +982,8 @@ def tri_blocks_transmittance(packed, o_t, d_t, t_max_t, cand, counts,
         w = packed[blk]
         t = _prim_t_blocks(prim, o_t, d_t, w, t_min)
         occ = (t < t_max_t[..., None]) & (k < counts)[:, None, None]
-        # The product of the occluders' factors as a sum of logs, as in
-        # the sweep kernel: exact for opaque (0) and clear (1) factors.
-        log_f = jnp.log(w[:, None, 15, :])
-        return trans * jnp.exp(jnp.sum(jnp.where(occ, log_f, 0.0),
-                                       axis=-1)), None
+        f = jnp.where(occ, w[:, None, 15, :], 1.0)
+        return trans * jnp.prod(f, axis=-1), None
 
     trans, _ = jax.lax.scan(
         body, jnp.ones(o_t.shape[:2], o_t.dtype), jnp.arange(k_max)

@@ -13,8 +13,8 @@ Here one program owns one strip and walks only its own list in a
   bound lies beyond every live ray's ``min(best t, scene-box exit)`` —
   exact, because the list is sorted by a lower bound on any hit in the
   block;
-* transmittance stops at the count, or once every live ray is fully
-  shadowed.
+* transmittance stops at the count, or once every live ray's
+  transmittance is exactly 0 (more occluders cannot change it).
 
 Each step reads the candidate's packed slab from device memory in
 ``sub``-column chunks, loading only the rows its primitive family uses
@@ -129,7 +129,7 @@ def _kernel(cand_ref, counts_ref, nearb_ref, o_ref, d_ref, tmax_ref,
 
     def cond(carry):
         k, _, lit = carry
-        return (k < n) & (lit > 1e-6)
+        return (k < n) & (lit > 0.0)
 
     def body(carry):
         k, tr, _ = carry
@@ -138,8 +138,10 @@ def _kernel(cand_ref, counts_ref, nearb_ref, o_ref, d_ref, tmax_ref,
         def chunk(c, tr):
             t, cols = slab_t(blk, c)
             # Product of the occluders' shadow factors (row 15) as a sum
-            # of logs: exact for the opaque 0 (log -> -inf, exp -> 0)
-            # and the clear 1, one rounding per chunk otherwise.
+            # of logs, since Pallas's Triton lowering has no product
+            # reduction.  Exact for the opaque 0 (log -> -inf, exp -> 0)
+            # and the clear 1; other factors are a few ulps from the
+            # XLA scan's plain product.
             log_f = jnp.log(packed_ref[blk, 15, cols])[None, :]
             s = jnp.sum(jnp.where(t < tmax[:, None], log_f, 0.0), axis=1)
             return tr * jnp.exp(s)

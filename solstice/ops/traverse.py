@@ -317,7 +317,9 @@ def _scene_closest_hit_raw(
 def _sweep_closest(route, packed, o_t, d_t, t_cap, live, cand, counts,
                    nearb, t_min, prim):
     """Closest-hit strip sweep on the configured route: (t, idx), both
-    (S, SB), idx -1 on miss.  The strip is the tile of the block scan."""
+    (S, SB), idx -1 on miss, and visits (S * G,), the candidate blocks
+    each strip tested (the XLA scan tests its whole list).  The strip is
+    the tile of the block scan."""
     from solstice.ops import packet as pk
 
     s, sb = o_t.shape[:2]
@@ -329,16 +331,17 @@ def _sweep_closest(route, packed, o_t, d_t, t_cap, live, cand, counts,
             packed, strips(o_t), strips(d_t), cand.reshape(-1, k),
             counts.reshape(-1), t_min, prim=prim,
         )
+        visits = counts.reshape(-1)
     else:
         from solstice.ops.sweep_kernel import sweep_closest
 
-        bt, bi, _ = sweep_closest(
+        bt, bi, visits = sweep_closest(
             packed, strips(o_t), strips(d_t), strips(t_cap),
             strips(live), cand.reshape(-1, k), counts.reshape(-1),
             nearb.reshape(-1, k), t_min, prim=prim,
             interpret=route == "interpret",
         )
-    return bt.reshape(s, sb), bi.reshape(s, sb)
+    return bt.reshape(s, sb), bi.reshape(s, sb), visits
 
 
 def _sweep_transmittance(route, packed, o_t, d_t, tm_t, live, cand,
@@ -736,8 +739,8 @@ def _tri_packet_closest(scene, o, d, t_min, packet, prim="tri"):
     bmin, bmax = _scene_box(accel)
     t_cap = pk.ray_box_exit(o_t, d_t, bmin, bmax)  # (S, SB)
 
-    bt, bi = _sweep_closest(route, accel.packed, o_t, d_t, t_cap, live,
-                            cand, counts, nearb, t_min, prim)
+    bt, bi, _ = _sweep_closest(route, accel.packed, o_t, d_t, t_cap,
+                               live, cand, counts, nearb, t_min, prim)
 
     if exact and net_bvh is not None:
         need = (
